@@ -1,4 +1,4 @@
-"""CWSL_DIGI_TPU — a TPU-native multi-channel weak-signal digital-mode skimmer.
+"""CWSL_DIGI_TPU — a multi-channel weak-signal digital-mode skimmer in JAX.
 
 A from-scratch re-design of the capabilities of alexranaldi/CWSL_DIGI
 (reference: /root/reference, a Windows C++17 app that channelizes wideband SDR
@@ -7,7 +7,7 @@ FST4W/JS8 via external WSJT-X/JS8Call processes, then reports spots to
 PSK Reporter / WSPRNet / RBN Aggregator).
 
 This framework inverts the reference's thread-per-channel architecture into
-batched JAX/XLA/Pallas programs:
+batched JAX/XLA programs:
 
 - ``sdr/``      — IQ intake (file replay, socket, POSIX shm mirroring the
                   reference's CWSL shared-memory contract).

@@ -1,6 +1,6 @@
-"""Batched TPU channelizer: NCO mix + polyphase FIR decimation, all channels at once.
+"""Batched channelizer: NCO mix + polyphase FIR decimation, all channels at once.
 
-This is the TPU-native replacement for the reference's per-channel SSBD
+This is the device replacement for the reference's per-channel SSBD
 threads (source/SSBD.hpp:42-221 driven by source/Instance.cpp:178-285): one
 device program computes every configured channel of one receiver as rows of a
 ``[channels, time]`` batch.
@@ -9,19 +9,19 @@ Math (identical to the closed form in ``ssbd.py``): with ``BS = Fs/(2B)``,
 ``FO = latency*2*Fs/B`` and ``segs[r, s] = filter[s*BS + r]``::
 
     mixed[c, u]   = iq[u] * exp(-j*2*pi*(F_c + sign*B/2)/Fs * u)
-    bd[c, b, s]   = sum_r mixed[c, b*BS + r] * segs[r, s]      (MXU matmul)
+    bd[c, b, s]   = sum_r mixed[c, b*BS + r] * segs[r, s]      (matmul)
     y[c, t]       = sum_s bd[c, t + s, s]                      (diagonal sum)
     audio[c, t]   = Re(y[c, t] * (j*sign)^t)
 
 The ``bd`` matmul is the whole FIR: reshaping time into ``[blocks, BS]`` and
 contracting BS against the NumWS filter segments maps the decimating FIR onto
-the MXU instead of a scalar tap loop.
+a matrix product instead of a scalar tap loop.
 
-TPU-first design decisions:
+Design decisions:
 
-- **All complex arithmetic is split into real/imag pairs.**  Complex dtypes
-  never cross the jit boundary (the TPU backend has no complex array
-  support, and split-real is what the hardware executes anyway).
+- **All complex arithmetic is split into real/imag pairs**, and complex
+  dtypes never cross the jit boundary.  Nothing in the hardware requires
+  this (the GPU takes complex64); it is how the code was first written.
 - **No runtime trig.**  Channel frequencies are fixed at construction, so
   every NCO factor (the per-sample tone basis for one sub-block and the
   per-sub-block rotation powers) is precomputed in float64 NumPy and baked
@@ -134,7 +134,7 @@ def _channelize_block(
     inv = jax.lax.rsqrt(nr * nr + ni * ni)
     phasor_re, phasor_im = nr * inv, ni * inv
 
-    # --- polyphase FIR as an MXU matmul ----------------------------------
+    # --- polyphase FIR as a matmul ---------------------------------------
     buf_re = jnp.concatenate([state["hist_re"], mr], axis=1)      # [C, H+T]
     buf_im = jnp.concatenate([state["hist_im"], mi], axis=1)
     n_blocks = buf_re.shape[1] // bs

@@ -161,7 +161,7 @@ def pack_payload(text: str, is_w: bool) -> np.ndarray:
 
 def unpack_payload(bits77: np.ndarray, is_w: bool) -> str | None:
     if not is_w:
-        return message77.unpack77(bits77).text
+        return message77.unpack77_text(bits77)
     try:
         call, grid, dbm = wspr.unpack_message(bits77[:50])
     except ValueError:
@@ -213,6 +213,5 @@ class FST4Decoder(GFSKDecoder):
             get_bp_decoder("fst4", iters=spec.bp_iters),
             fst4_crc_matrix(),
             mode,
-            unpack=lambda bits: unpack_payload(bits[:PAYLOAD_BITS], is_w)
-            or "<bad payload>",
+            unpack=lambda bits: unpack_payload(bits[:PAYLOAD_BITS], is_w),
         )

@@ -1,4 +1,4 @@
-"""FT4: 4-GFSK, 7.5 s T/R, LDPC(174,91)+CRC14 — native batched TPU decoder.
+"""FT4: 4-GFSK, 7.5 s T/R, LDPC(174,91)+CRC14 — native batched device decoder.
 
 The reference invokes ``jt9 -5`` with ntrperiod=7.5 (source/
 DecoderPool.hpp:472-477,643); here FT4 is a parameterization of the shared
@@ -67,6 +67,15 @@ SPEC = ModeSpec(
     os_f=4,
     refine=True,
     bt=1.0,
+    # weak-candidate gates, from noise audits (tools/noise_audit.py): every
+    # false decode came from OSD, with a hard sync count of 6-11 of 16 and
+    # an SNR of -19.6 to -21.2 dB; true decodes at -17..-19 dB had 8-16
+    # and -15 to -20.3 dB.  8 OSD candidates recall as many as 16.
+    sync_min=6,       # jt9's FT4 floor: 20 of the 32 sync bits
+    weak_sync=11,
+    snr_floor_db=-20.4,
+    osd_sync_min=9,
+    osd_j=8,
 )
 
 
@@ -108,5 +117,5 @@ class FT4Decoder(GFSKDecoder):
             get_bp_decoder("ft8", iters=spec.bp_iters),
             ft8_crc_matrix(),
             Mode.FT4,
-            unpack=lambda bits: message77.unpack77(bits[:77]).text,
+            unpack=lambda bits: message77.unpack77_text(bits[:77]),
         )

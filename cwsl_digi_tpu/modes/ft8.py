@@ -1,4 +1,4 @@
-"""FT8: 8-GFSK, 79 symbols, LDPC(174,91)+CRC14 — native batched TPU decoder.
+"""FT8: 8-GFSK, 79 symbols, LDPC(174,91)+CRC14 — native batched device decoder.
 
 The flagship mode.  The reference hands 15 s windows to external ``jt9 -8``
 processes (source/DecoderPool.hpp:634-676); here the whole decode — sync
@@ -75,6 +75,9 @@ SPEC = ModeSpec(
     os_t=8,
     os_f=4,
     refine=True,
+    sync_min=6,
+    weak_sync=10,
+    snr_floor_db=-24.0,
 )
 
 
@@ -171,7 +174,7 @@ class FT8Decoder(GFSKDecoder):
             get_bp_decoder("ft8", iters=s.bp_iters),
             ft8_crc_matrix(),
             Mode.FT8,
-            unpack=lambda bits: message77.unpack77(bits[:77]).text,
+            unpack=lambda bits: message77.unpack77_text(bits[:77]),
             ap_hypotheses=ap if isinstance(ap, np.ndarray) else None,
         )
 
@@ -192,11 +195,14 @@ def results_from_arrays(out: dict[str, np.ndarray],
             if not out["valid"][wi, k]:
                 continue
             payload = np.asarray(out["payload"][wi, k, :77])
+            text = message77.unpack77_text(payload)
+            if text is None:
+                continue
             key = np.packbits(payload).tobytes()
             dt = out["t0_hop"][wi, k] * spec.hop / WAVE_SR - spec.signal_start_s
             freq = out["f0_bin"][wi, k] * spec.bin_hz
             r = DecodeResult(
-                message=message77.unpack77(payload).text,
+                message=text,
                 snr_db=round(float(out["snr"][wi, k]), 1),
                 dt_s=round(float(dt), 2),
                 freq_hz=round(float(freq), 1),

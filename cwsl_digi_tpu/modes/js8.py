@@ -95,6 +95,9 @@ SPEC = ModeSpec(
     max_hops=128,
     pad_hops=64,
     refine=True,
+    sync_min=6,
+    weak_sync=10,
+    snr_floor_db=-24.0,
 )
 
 FRAME_TEXT = 0
@@ -427,16 +430,11 @@ class JS8Decoder(GFSKDecoder):
             spec = dataclasses.replace(SPEC, top_k=top_k or SPEC.top_k,
                                        bp_iters=bp_iters or SPEC.bp_iters,
                                        fmax_hz=fmax_hz or SPEC.fmax_hz)
-        def _unpack(bits):
-            # distinguish a malformed frame (None) from a legitimately
-            # empty text frame ("")
-            text = unpack_payload(bits[:PAYLOAD_BITS])
-            return "<bad frame>" if text is None else text
-
         super().__init__(
             spec,
             BPDecoder(js8_code(), iters=spec.bp_iters),
             js8_crc_matrix(),
             Mode.JS8,
-            unpack=_unpack,
+            # a malformed frame unpacks to None and is not reported
+            unpack=lambda bits: unpack_payload(bits[:PAYLOAD_BITS]),
         )

@@ -28,10 +28,10 @@ candidates:
 
 - messages live in a dense ``[batch, n_checks, max_row_weight]`` tensor
   (static shapes; padded lanes masked), gathered/scattered with ``jnp.take``
-  — XLA turns these into efficient TPU gathers;
+  — XLA turns these into batched device gathers;
 - no data-dependent control flow: all batch elements run all iterations,
   convergence is detected afterwards by the parity/CRC mask (the decode
-  batch is already throughput-bound, so early exit buys nothing on TPU).
+  batch is already throughput-bound, so early exit buys little).
 """
 
 from __future__ import annotations
@@ -253,7 +253,7 @@ class BPDecoder:
         def var_totals(m_cv):
             # var totals: channel LLR + sum of incoming check messages.
             # GATHER formulation (each var pulls its <=max_col incoming
-            # slots) — a scatter-add here serializes on TPU.
+            # slots) — a scatter-add here would serialize on conflicts.
             flat = m_cv.reshape(b, nc * mr)
             inc = jnp.take(flat, col_slots.reshape(-1), axis=1)
             inc = (inc.reshape(b, n, mc) * col_mask[None]).sum(-1)

@@ -733,3 +733,10 @@ def unpack77(bits: np.ndarray) -> Message:
         return Message(text=f"<unsupported i3=0.{n3}>", i3=0,
                        is_free_text=True)
     return Message(text=f"<unsupported i3={i3}>", i3=i3, is_free_text=True)
+
+
+def unpack77_text(bits: np.ndarray) -> str | None:
+    """Text of a 77-bit payload; None for a message type jt9 does not
+    report (an unsupported i3/n3 is a CRC-passing noise codeword)."""
+    msg = unpack77(bits)
+    return None if msg.text.startswith("<unsupported") else msg.text

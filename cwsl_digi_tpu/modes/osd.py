@@ -8,8 +8,8 @@ fails: re-derive the codeword from hard decisions on the k most reliable
 patterns over the least reliable of those positions, keeping the codeword
 with minimum soft distance to the received word.
 
-TPU formulation
----------------
+Device formulation
+------------------
 OSD is usually written as sequential Gaussian elimination per word — a poor
 fit for SIMD.  Here the whole pass is one batched device program:
 
@@ -18,7 +18,7 @@ fit for SIMD.  Here the whole pass is one batched device program:
   ``lax.fori_loop`` over the n columns with masked row-swap / row-xor updates
   (all words advance in lockstep; a word whose pivot search fails at a column
   simply doesn't advance its pivot row);
-- the T flip patterns become one ``[T, k] @ [k, n]`` MXU matmul per word
+- the T flip patterns become one ``[T, k] @ [k, n]`` matmul per word
   (batched via einsum), and the soft-distance arg-min is a reduction.
 
 False-decode control: OSD always produces *some* codeword, so acceptance is
@@ -77,7 +77,7 @@ def _osd_one(gen: jax.Array, llr: jax.Array, patterns: jax.Array):
     rows = jnp.arange(k)
     # BIT-PACK the permuted generator: the elimination loop's state drops
     # from k*n bytes to k*ceil(n/32) words, so the ~k sequential steps
-    # (each a full pass over the state) shrink ~7x in HBM traffic.
+    # (each a full pass over the state) shrink ~7x in memory traffic.
     # Column c lives at bit (c & 31) of word (c >> 5).
     shift = jnp.uint32(1) << (jnp.arange(n, dtype=jnp.uint32) % 32)
     gperm = gen[:, perm].astype(jnp.uint32)

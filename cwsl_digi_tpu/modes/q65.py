@@ -117,12 +117,9 @@ def unpack_message(symbols: np.ndarray) -> str | None:
     for s in symbols:
         bits.extend(message77.bits_from_int(int(s), 6))
     try:
-        msg = message77.unpack77(np.asarray(bits[:77], np.uint8))
+        return message77.unpack77_text(np.asarray(bits[:77], np.uint8))
     except (IndexError, ValueError, AssertionError):
         return None
-    if msg.text.startswith("<unsupported"):
-        return None
-    return msg.text
 
 
 def encode_message(text: str) -> np.ndarray:

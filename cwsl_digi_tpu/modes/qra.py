@@ -16,7 +16,7 @@ provides the native equivalent:
 - ``QaryMPDecoder``: batched sum-product over GF(64) in the probability
   domain.  Check nodes convolve symbol distributions under GF addition
   (= XOR), done with a 64-point Walsh-Hadamard transform as one [64, 64]
-  MXU matmul; GF edge coefficients are static permutations of the symbol
+  matmul; GF edge coefficients are static permutations of the symbol
   axis.  Fixed iteration count, no data-dependent control flow.
 """
 

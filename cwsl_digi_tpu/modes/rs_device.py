@@ -1,24 +1,22 @@
 """Batched Reed-Solomon errors-and-erasures decoding ON DEVICE.
 
 The reference outsources JT65's RS(63,12) to jt9 (spawn site
-source/DecoderPool.hpp:648); round 4 ran a native C++ stochastic-erasure
-trial loop on the HOST (native/rs_ft.cpp), measured at 23-40% of the
-JT65 decode wall on a 2-core host — the scaling wall VERDICT r4 #6
-flagged: at hundreds of q-ary channels the host becomes the bottleneck
-the reference never had (it burned cores in jt9.exe instead).
+source/DecoderPool.hpp:648); a host trial loop (native/rs_ft.cpp) makes
+the host the bottleneck at hundreds of q-ary channels, which the
+reference never had (it burned cores in jt9.exe instead).
 
-This module is the TPU-native replacement: ONE device program decodes
+This module is the device replacement: ONE device program decodes
 thousands of (sync candidate x erasure pattern) trials in parallel —
 the Franke-Taylor-style stochastic erasure search is embarrassingly
 data-parallel, it was only ever sequential because wsjt-x runs it on a
 CPU.
 
-Design notes (TPU-first):
+Design notes:
 
 - **GF(2^6) multiplication is carry-less multiply + reduction** over the
   primitive polynomial x^6+x+1 (0x43): 6 shift/select/XOR steps + 5
-  reduction steps, pure elementwise VPU work.  No log/exp table gathers
-  — gathers from tiny tables serialize on TPU, bitwise selects vectorize.
+  reduction steps, pure elementwise work.  No log/exp table gathers:
+  bitwise selects vectorize.
 - **Everything is masked, nothing branches.**  Erasure counts vary per
   trial; the Berlekamp-Massey iteration space is the full 2t rounds with
   per-trial active masks (r > no_erasures), so one compiled program

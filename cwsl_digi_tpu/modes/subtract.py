@@ -4,14 +4,13 @@ The reference's deep decode (``jt9 -d 3``) iteratively subtracts decoded
 signals inside the external binary.  Round-1 did this on the host, which
 meant re-uploading the full audio batch to the device every pass (a 15 s
 FT8 window is ~0.7 MB; a 24-window batch is ~17 MB per pass) and
-synthesizing each burst in numpy.  This module is the TPU-native version:
+synthesizing each burst in numpy.  This module is the device version:
 the capture batch is uploaded ONCE, and each pass rebuilds the residual on
 device from the (tiny) burst parameter lists — host↔device traffic per pass
 drops to a few hundred KB of compact decode outputs.
 
-TPU-shaped memory access: generic per-sample gathers/scatters on
-[B, 150k] arrays run at well under 1 GB/s on the VPU (measured ~35 ms
-each), so the burst window is never addressed per sample.  Instead:
+Memory access: generic per-sample gathers/scatters on [B, 150k] arrays
+are slow, so the burst window is never addressed per sample.  Instead:
 
   - the residual lives as hop-granular blocks [B, T/hop, hop]; burst
     extraction/write-back are BLOCK gathers/scatters (contiguous hop-size
@@ -116,8 +115,8 @@ def subtract_known(spec, audio, params, gen_parity):
     # The residual carries `margin` zero blocks on each side so that burst
     # extraction / write-back are plain vmapped dynamic slices (contiguous
     # block windows) instead of take_along_axis / 3D scatter — generic
-    # gathers and scatters on [B, 150k] arrays are the slowest thing a TPU
-    # can do (measured 15.6 ms/window; slices ~1 ms).  Writes into the
+    # gathers and scatters on [B, 150k] arrays cost far more than
+    # contiguous slices.  Writes into the
     # margin are always zero (`sub` is masked to the unpadded window), so
     # the margin stays zero across scan steps and extraction through it
     # reproduces the old out-of-range zeroing exactly.

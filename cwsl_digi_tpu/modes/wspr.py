@@ -16,7 +16,7 @@ Physical layer (public WSPR parameters):
   - transmission starts ~1 s into the even 2-minute slot, 110.6 s long,
     centered near 1500 Hz audio.
 
-TPU-first decoder:
+Batched device decoder:
   1. spectrogram (8192-sample frames, 2048 hop, 16384-pt rfft -> half-tone
      bins) restricted to the 200 Hz WSPR subband;
   2. sync-vector correlation over (t0, f0) as 162 signed shifted-slice adds
@@ -613,6 +613,14 @@ def _beam_decode(cfg: WSPRConfig, llr):
 # Host wrapper
 # ---------------------------------------------------------------------------
 
+def _device_batch(n_samples: int) -> int:
+    """Windows per device call for windows of ``n_samples``."""
+    from cwsl_digi_tpu.modes.gfsk_engine import device_batch_for
+
+    return device_batch_for((n_samples - SPS) // HOP + 1 + 2 * PAD_HOPS,
+                            NFFT, 64)
+
+
 class WSPRDecoder:
     mode = Mode.WSPR
 
@@ -650,23 +658,29 @@ class WSPRDecoder:
         self._deinter = INTERLEAVE
         self._window = np.hanning(SPS).astype(np.float32)
 
+    @property
+    def max_device_batch(self) -> int:
+        return _device_batch(int(T_R * WAVE_SR))
+
+    def device_call(self, chunk):
+        """The jitted decode program and its arguments for one device
+        chunk ``[B, N]`` (``program.lower(*args)`` lowers it)."""
+        return _decode_program, (self.cfg, (chunk.shape[1],), chunk,
+                                 self._sync, self._deinter, self._window)
+
     def decode_arrays(self, audio: np.ndarray) -> dict[str, np.ndarray]:
         audio = np.asarray(audio, np.float32)
         if audio.ndim == 1:
             audio = audio[None, :]
-        from cwsl_digi_tpu.modes.gfsk_engine import device_batch_for
-
         n = audio.shape[0]
-        n_hops = (audio.shape[1] - SPS) // HOP + 1 + 2 * PAD_HOPS
-        batch = device_batch_for(n_hops, NFFT, 64)
+        batch = _device_batch(audio.shape[1])
         if n > batch and (-n) % batch:
             audio = np.concatenate(
                 [audio, np.zeros(((-n) % batch, audio.shape[1]), np.float32)])
         chunks = []
         for i in range(0, audio.shape[0], batch):
-            out = _decode_program(self.cfg, (audio.shape[1],),
-                                  audio[i : i + batch],
-                                  self._sync, self._deinter, self._window)
+            program, args = self.device_call(audio[i : i + batch])
+            out = program(*args)
             chunks.append({k: np.asarray(v) for k, v in out.items()})
         if len(chunks) == 1:
             return {k: v[:n] for k, v in chunks[0].items()}

@@ -1,11 +1,11 @@
 """Multi-host distribution over DCN: window dispatch + spot aggregation.
 
-The reference is strictly single-host (SURVEY.md §2.4); the TPU build scales
+The reference is strictly single-host (SURVEY.md §2.4); this build scales
 out with two complementary mechanisms:
 
 1. **Intra-program sharding** (mesh.py / pipeline.py / timeshard.py): one
-   jitted program spanning all chips of a slice — XLA moves tensors over
-   ICI.  For multi-host slices the same code runs under
+   jitted program spanning all devices of a host — XLA moves tensors over
+   the device interconnect.  For multi-host meshes the same code runs under
    ``jax.distributed.initialize()``; nothing here changes.
 
 2. **Window-level dispatch over DCN** (this module): independent capture

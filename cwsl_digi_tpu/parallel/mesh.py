@@ -1,7 +1,7 @@
 """Device meshes and sharding helpers.
 
 The reference's parallelism is threads + child processes on one Windows host
-(SURVEY.md §2.3); the TPU-native analogue is a jax.sharding.Mesh whose axes
+(SURVEY.md §2.3); the analogue here is a jax.sharding.Mesh whose axes
 carry:
 
 - ``ch``  — channel-parallelism (rows of the batched channelizer / decode

@@ -10,7 +10,7 @@ one-thread-per-Instance, SURVEY.md §2.3) becomes the mesh axis ``ch``:
   sharded on ``ch``;
 - the wideband IQ block is replicated (every chip mixes the channels it
   owns from the same IQ) — the natural layout when channels >> chips, since
-  IQ-per-window is small and XLA broadcasts it once over ICI.
+  IQ-per-window is small and XLA broadcasts it once to every device.
 """
 
 from __future__ import annotations

@@ -1,17 +1,17 @@
 """Time-sharded channelizer: long capture windows split across devices with
-FIR-halo exchange over ICI.
+FIR-halo exchange between neighbours.
 
 The reference's "long sequence" dimension is capture-window length — up to
 1800 s for FST4-1800 (21.6 M audio samples; buffer cap NTMAX at
-source/DecoderPool.hpp:45-46).  Its answer is queue segregation; the TPU
-answer is sequence parallelism: shard the window's time axis over the mesh,
+source/DecoderPool.hpp:45-46).  Its answer is queue segregation; the
+answer here is sequence parallelism: shard the window's time axis over the mesh,
 exchange the ``FiltOrder - BlockSize`` mixed-sample halo between neighbors
 (the overlap-save analogue of SSBD's workspace carry, source/SSBD.hpp:163-182),
-and keep every chip's FIR matmul local.
+and keep every device's FIR matmul local.
 
 Implementation: ``shard_map`` over mesh axis ``t``; the halo moves with one
-``jax.lax.ppermute`` (neighbor shift), which XLA lowers to an ICI
-point-to-point transfer.  Per-shard NCO phase offsets are host-precomputed
+``jax.lax.ppermute`` (neighbor shift), which XLA lowers to a
+point-to-point transfer (NVLink between the cards of one host).  Per-shard NCO phase offsets are host-precomputed
 in float64 (no on-device trig, no drift).
 """
 
@@ -112,7 +112,7 @@ def _time_sharded_call(
         tr, ti = _cmul(tone_re_l, tone_im_l, rr, ri)
         mr, mi = _cmul(iq_re_l[None, :], iq_im_l[None, :], tr, ti)  # [C, T_loc]
 
-        # halo: last h mixed samples from the left neighbor over ICI
+        # halo: last h mixed samples from the left neighbor
         perm = [(i, i + 1) for i in range(n_shards - 1)]
         halo_r = jax.lax.ppermute(mr[:, t_loc - h:], axis, perm)
         halo_i = jax.lax.ppermute(mi[:, t_loc - h:], axis, perm)

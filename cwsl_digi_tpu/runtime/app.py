@@ -53,6 +53,7 @@ class App:
             immediate=bool(cfg.get("logging", "logimmediately")),
         )
         self._terminate = False
+        self._warm = False
         self.receivers: dict[str, Receiver] = {}
         self.stats = Stats(num_decoders=len(cfg.decoders))
 
@@ -218,8 +219,7 @@ class App:
             try:
                 rx = Receiver(src, lines, self.pool, utc_anchor=utc_anchor,
                               log=self.printer.print, line_indices=idxs,
-                              align_live=live,
-                              channelizer=self.cfg.get("tpu", "channelizer"))
+                              align_live=live)
             except ValueError as e:
                 # e.g. decoder tuned outside the source's band — log and
                 # retry on the re-attach cadence (reference behavior for
@@ -251,11 +251,15 @@ class App:
     def warmup(self) -> None:
         """Pre-compile every configured mode's decode program.
 
-        First compiles can take minutes (especially via remote-compile
-        tunnels); doing them before receivers start means no capture window
-        ever waits behind a compile and gets shed as stale.
+        First compiles can take minutes; doing them before receivers start
+        means no capture window ever waits behind a compile and gets shed
+        as stale.  Runs once: :meth:`run` calls it, and so may its caller
+        beforehand.
         """
         import numpy as np
+
+        if self._warm:
+            return
 
         from cwsl_digi_tpu.constants import WAVE_SR
 
@@ -295,6 +299,7 @@ class App:
                 f"warmup: {mode.value} x{n_ch} decode program compiled in "
                 f"{time.monotonic() - t0:.0f} s"
             )
+        self._warm = True
 
     def run(self) -> None:
         self.printer.info(f"{PROGRAM_NAME} {__version__} starting")

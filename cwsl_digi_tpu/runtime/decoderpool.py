@@ -92,8 +92,7 @@ class DecoderPool:
         self._busy: list[tuple[float, float]] = []   # (start, end) spans
         self._busy_lock = threading.Lock()
         # per-job stage timing (queue wait vs decode wall), for the soak
-        # artifact's stage breakdown (VERDICT r4 weak #7: prove where the
-        # per-window budget goes instead of modeling it)
+        # artifact's stage breakdown (where the per-window budget goes)
         import collections as _collections
 
         self.stage_log: "_collections.deque[dict]" = _collections.deque(

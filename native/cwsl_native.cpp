@@ -1,6 +1,6 @@
 // cwsl_native: native runtime components for CWSL_DIGI_TPU.
 //
-// TPU-native equivalents of the reference's C++ runtime pieces:
+// Native equivalents of the reference's C++ runtime pieces:
 //  - lock-free SPSC/SPMC block ring buffers
 //    (reference: source/ring_buffer.h:30-157, source/ring_buffer_spmc.h:30-190)
 //  - POSIX shared-memory IQ source with the SM_HDR-equivalent header

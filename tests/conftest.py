@@ -1,5 +1,5 @@
-"""Test configuration: force CPU with 8 virtual devices so multi-chip
-sharding tests run without TPU hardware (SURVEY.md §4c).
+"""Test configuration: force CPU with 8 virtual devices so multi-device
+sharding tests run without a GPU (SURVEY.md §4c).
 
 Note: some environments pre-import jax via pytest plugins, so the env var
 alone is not enough — we also update jax.config before any backend is

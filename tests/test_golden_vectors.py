@@ -1,5 +1,5 @@
 """Spec-anchored known-answer vectors that do NOT pass through the
-project's own encoders (VERDICT r4 "next" #2).
+project's own encoders.
 
 Every committed fixture and parity trial elsewhere in tests/ was produced
 by this repo's encoders, so a systematic encode-side error would

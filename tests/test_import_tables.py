@@ -4,7 +4,7 @@ Feeds synthetic files in each upstream format (Fortran Nm/Mn data
 statements, js8call varicode.cpp pair initializers) through the importer
 and asserts the emitted tables load byte-identically through
 modes/tables_ext — then decodes a JS8 signal end-to-end under the
-imported tables (VERDICT r4 "next" #7's done-criterion).
+imported tables.
 """
 
 from __future__ import annotations

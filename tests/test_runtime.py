@@ -250,22 +250,6 @@ def test_receiver_thread_and_status(tmp_path):
     rx.terminate()
 
 
-def test_receiver_rejects_demoted_pallas_backend():
-    """The pallas channelizer lost the bench-off (bench.py measures both
-    every round) and is demoted from the runtime path; its math parity
-    with the XLA backend is still covered by test_pallas_channelizer.py."""
-    import pytest as _pytest
-
-    class _P:
-        def push(self, job):
-            pass
-
-    with _pytest.raises(ValueError, match="demoted"):
-        Receiver(SyntheticSource(192_000, 14_080_000),
-                 [DecoderLine(14_074_000, Mode.FT8)], _P(),
-                 channelizer="pallas")
-
-
 def test_app_reaps_finished_live_receivers():
     """FINISHED receivers of LIVE sources are reaped so the re-attach
     cadence rebuilds them (reference re-setups FINISHED decoders every

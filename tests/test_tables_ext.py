@@ -91,7 +91,7 @@ def test_loaders_pick_up_supplied_tables(tmp_path):
         # the supplied tables flow through the FULL pipeline:
         # synthesize -> sync -> demod -> FEC decode (-> subtract for the
         # second JS8 burst) -> message, proving a one-file drop of the
-        # published tables needs no code change (VERDICT r3 item 4)
+        # published tables needs no code change
         from cwsl_digi_tpu.modes import fst4
         from cwsl_digi_tpu.modes.gfsk import add_noise_at_snr
         from cwsl_digi_tpu.constants import Mode

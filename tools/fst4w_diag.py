@@ -6,8 +6,8 @@ For each undetected trial at a given SNR, classify the failure:
   - decode_fail: a candidate was on target but BP+OSD could not validate
                  a codeword — the LLR/decoder chain is the limit.
 
-This tells us which lever closes the remaining FST4W-120 gap
-(VERDICT r4 item 5): candidate grid / sync scoring vs bit metrics / OSD.
+This tells us which lever closes the remaining FST4W-120 gap:
+candidate grid / sync scoring vs bit metrics / OSD.
 
 Usage: python tools/fst4w_diag.py --snrs -30,-30.5,-31 --trials 16
 """

@@ -22,8 +22,8 @@ Output JSON shape (PARITY_REPORT.json):
                "false_per_noise_window": 0.0}, ...},
      "crowded": {"n_signals": 18, "recall": 0.94}}
 
-Runs on the ambient JAX platform (TPU when available; JAX_PLATFORMS=cpu
-for CPU).  Reference thresholds to match (practical WSJT-X limits, also
+Runs on the ambient JAX platform (the GPU when available;
+JAX_PLATFORMS=cpu for CPU).  Reference thresholds to match (practical WSJT-X limits, also
 quoted in tools/sensitivity.py): FT8 -21, FT4 -17.5, WSPR -31 (deep),
 JT65 -24, Q65-30 -26, FST4-60 -24.5, FST4W-120 -32.
 """
@@ -183,7 +183,8 @@ def sweep_mode(mode: str, trials: int, seed: int = 42,
             wants.append(want)
         # decode in groups: a 1800 s window is 21.6 M samples, and holding
         # 24 of them device-resident alongside the decode temporaries
-        # overflows HBM (the subtraction pass keeps original + residual)
+        # overflows device memory (the subtraction pass keeps original +
+        # residual)
         wlen = len(wins[0])
         group = max(1, min(len(wins), int(2.0e8 // wlen) or 1))
         res = []
@@ -208,8 +209,8 @@ def sweep_mode(mode: str, trials: int, seed: int = 42,
         print(f"  {mode}: {false_n} FALSE decodes on {n_noise} noise windows",
               flush=True)
 
-    # 95% binomial CI half-width per recall point (VERDICT r4 weak #6:
-    # quote thresholds with stated confidence, not as bare numbers)
+    # 95% binomial CI half-width per recall point (thresholds are quoted
+    # with stated confidence, not as bare numbers)
     ci95 = {s_: round(1.96 * float(np.sqrt(max(r * (1 - r), 0.25 / trials)
                                            / trials)), 3)
             for s_, r in recall.items()}

@@ -44,7 +44,7 @@ def beam_sweep(trials: int, snrs: list[float],
     Calibrates the ``wsprcycles`` -> beam-width mapping (reference default
     3000 cycles/bit, config.ini:217-222, wsprd -C at DecoderPool.hpp:1026;
     here cycles scale the beam of the lax.scan sequential decoder).  The
-    committed JSON is the evidence behind the default (VERDICT r3 item 5).
+    committed JSON is the evidence behind the default.
     Randomized messages/frequencies/offsets per trial, like tools/parity.
     """
     import json
